@@ -1,11 +1,11 @@
-"""lsm_tpu — a TPU-native differentiable level-set engine.
+"""lsm_tpu — a differentiable level-set engine in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of
-``maltezfaria/LevelSetMethods.jl`` (mounted read-only at ``/root/reference``):
+A JAX/XLA implementation of the capabilities of ``maltezfaria/LevelSetMethods.jl``:
 implicit interfaces as zero contours of a level-set function on a uniform
 Cartesian grid, evolved by Hamilton-Jacobi PDEs ``phi_t + sum_n term_n = 0``
-(Osher & Fedkiw), with whole-array stencils, fused Pallas kernels, device-mesh
-sharding with halo exchange, and end-to-end differentiability.
+(Osher & Fedkiw), with whole-array stencils that XLA fuses, device-mesh
+sharding with halo exchange, and end-to-end differentiability (the WENO5
+advection Hamiltonian carries a hand-derived adjoint).
 
 Public API (mirrors the reference's 34 exports, snake_cased where idiomatic):
 see ``SURVEY.md`` section 1 for the layer map this build follows.

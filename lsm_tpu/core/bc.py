@@ -2,10 +2,10 @@
 
 The reference expresses BCs as pointwise ghost-index stencils resolved lazily at
 ``phi[I]`` (``/root/reference/src/boundaryconditions.jl:19-188``,
-``meshfield.jl:248-260``). On TPU the idiomatic form is the inverse: *eagerly*
-materialize a ghost-padded array ``pad_ghost(values, bcs, width)`` once per stencil
-evaluation, so every downstream derivative is a dense shifted-slice over a single
-contiguous array (fusable by XLA, tileable by Pallas).
+``meshfield.jl:248-260``). Here the form is the inverse: *eagerly* materialize a
+ghost-padded array ``pad_ghost(values, bcs, width)`` once per stencil evaluation,
+so every downstream derivative is a dense shifted-slice over a single contiguous
+array that XLA fuses.
 
 Supported kinds (semantics matched to the reference):
 
@@ -183,10 +183,9 @@ def _ghost_block(
             idxs = np.arange(n - 1, n - 2 - P, -1)  # boundary node n-1 inward
             W = W[::-1]  # right block ordered innermost-first (k = 1..width)
         base = jnp.moveaxis(_take(v, idxs, axis), axis, 0)
-        # HIGHEST precision: TPU matmuls default to bf16 inputs, which would
-        # make every Extrapolation ghost only ~1e-2 accurate (caught by the
-        # on-chip refresh parity check — the Pallas kernels' scalar-weighted
-        # sums were right and this oracle was wrong)
+        # HIGHEST precision: a float32 contraction on a GPU may run in TF32
+        # (about 3 decimal digits), which would make every Extrapolation ghost
+        # only ~1e-3 accurate
         block = jnp.tensordot(
             jnp.asarray(W, dtype=v.dtype), base, axes=1,
             precision=jax.lax.Precision.HIGHEST,

@@ -1,6 +1,6 @@
 """Node-centered fields on a Cartesian grid.
 
-TPU-native analogue of the reference's dense ``MeshField``
+JAX analogue of the reference's dense ``MeshField``
 (``/root/reference/src/meshfield.jl:33-312``): values are a dense ``jnp`` array (the
 *dynamic* pytree leaf), while the grid and the normalized boundary conditions are
 static metadata. Vector-valued fields (the reference's ``SVector`` values,

@@ -1,6 +1,6 @@
 """Uniform Cartesian grid geometry.
 
-TPU-native analogue of the reference's ``CartesianGrid`` (see
+JAX analogue of the reference's ``CartesianGrid`` (see
 ``/root/reference/src/meshes.jl:1-110``): a static (non-traced) description of a
 tensor-product node lattice ``[lo, hi]`` with ``shape[d]`` nodes per dimension and
 spacing ``h[d] = (hi[d] - lo[d]) / (shape[d] - 1)``. Node ``i`` (0-based) along

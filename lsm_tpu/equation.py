@@ -1,6 +1,6 @@
 """User-facing evolution driver.
 
-TPU-native analogue of the reference's ``LevelSetEquation``
+JAX analogue of the reference's ``LevelSetEquation``
 (``/root/reference/src/levelsetequation.jl``): holds the terms, integrator, current
 state and time, and exposes ``integrate(tf)``.
 
@@ -72,9 +72,6 @@ class LevelSetEquation:
         self.state = state
         self.integrator = integrator
         self.t = float(t)
-        self._fast_cache = None  # (terms, integrator, interpret, stepper)
-        #: which fast path the last integrate() took: "fused", "band", or None
-        self.last_fast_path = None
 
     # -- accessors (levelsetequation.jl:124-166) -----------------------------------
 
@@ -110,29 +107,13 @@ class LevelSetEquation:
         prehook: Hook = None,
         posthook: Hook = None,
         max_steps: Optional[int] = None,
-        fast: str = "auto",
     ) -> "LevelSetEquation":
         """Advance the state to exactly ``tf`` (reference ``integrate!``,
         ``levelsetequation.jl:169-203``). Hooks run once per accepted step (not per
-        RK stage) and may mutate ``self.state`` / ``self.terms``.
-
-        ``fast`` selects the execution path: ``"auto"`` (default) drives the
-        fused padded-state Pallas steppers (:class:`FusedStepper` /
-        :class:`FusedBandStepper`) whenever the configuration qualifies and a
-        compiled backend is available — same adaptive per-step CFL, same
-        trajectory; ``"off"`` forces the general path; ``"interpret"`` forces
-        the fused path in Pallas interpret mode (tests/CPU)."""
+        RK stage) and may mutate ``self.state`` / ``self.terms``."""
         tf = float(tf)
         if tf < self.t:
             raise ValueError(f"tf = {tf} is before current time t = {self.t}")
-        if fast not in ("auto", "off", "interpret"):
-            raise ValueError(f"fast must be 'auto', 'off' or 'interpret', got {fast!r}")
-
-        self.last_fast_path = None
-        if prehook is None and posthook is None and fast != "off":
-            stepper = self._fast_stepper(interpret=(fast == "interpret"))
-            if stepper is not None:
-                return self._integrate_fast(stepper, tf, dt_max, max_steps)
 
         if prehook is None and posthook is None:
             phi, terms, t_reached, _ = _loop.evolve(
@@ -177,153 +158,6 @@ class LevelSetEquation:
             # integrate() calls chain exactly; an early max_steps stop keeps
             # the time actually integrated to.
             self.t = tf
-        return self
-
-    # -- fast (fused Pallas) path --------------------------------------------------
-
-    def _fast_stepper(self, interpret: bool):
-        """The fused stepper for the current configuration, or ``None``.
-
-        Auto mode engages only on a compiled backend (the Pallas kernels are
-        Mosaic/TPU programs); ``fast="interpret"`` runs them in interpret mode
-        anywhere. Steppers are cached across ``integrate`` calls (the
-        animation idiom, ``docs/src/index.md``) as long as terms/integrator
-        are unchanged."""
-        import jax
-
-        from .core.narrowband import NarrowBandField
-        from .integrators.band_fused import FusedBandStepper, supports_band_fused
-        from .integrators.fused import FusedStepper, supports_fused
-
-        if not interpret and jax.default_backend() in ("cpu", "interpreter"):
-            return None
-        cache = self._fast_cache
-        if (
-            cache is not None
-            and cache[1] is self.integrator
-            and cache[2] == interpret
-            and self._stepper_compatible(cache[3])
-            and (
-                cache[0] is self.terms
-                or (
-                    getattr(cache[3], "_has_update", False)
-                    and jax.tree_util.tree_structure(cache[0])
-                    == jax.tree_util.tree_structure(self.terms)
-                )
-            )
-        ):
-            return cache[3]
-        stepper = None
-        try:
-            if isinstance(self.state, NarrowBandField):
-                if supports_band_fused(self.terms, self.state):
-                    stepper = FusedBandStepper(
-                        self.terms, self.state, self.integrator, interpret=interpret
-                    )
-            elif supports_fused(self.terms, self.state):
-                stepper = FusedStepper(
-                    self.terms, self.state, self.integrator, interpret=interpret
-                )
-        except ValueError:
-            stepper = None
-        if stepper is not None:
-            self._fast_cache = (self.terms, self.integrator, interpret, stepper)
-        return stepper
-
-    def _stepper_compatible(self, stepper) -> bool:
-        """Whether a cached fused stepper still matches the *current* state.
-
-        ``eq.state`` may be reassigned between ``integrate()`` calls (a
-        supported idiom); the stepper snapshots grid/bcs/nlayers/shape at
-        construction, so a same-shaped state on a different grid (or with
-        different BCs) must rebuild rather than silently evolve with stale
-        geometry."""
-        from .core.narrowband import NarrowBandField
-        from .integrators.band_fused import FusedBandStepper
-
-        state = self.state
-        if isinstance(stepper, FusedBandStepper):
-            return (
-                isinstance(state, NarrowBandField)
-                and stepper.grid2 == state.grid
-                and stepper.bcs2 == state.bcs
-                and stepper.nlayers == state.nlayers
-            )
-        return (
-            not isinstance(state, NarrowBandField)
-            and stepper.grid == state.grid
-            and stepper.bcs == state.bcs
-            and stepper.shape == tuple(state.shape)
-        )
-
-    def _integrate_fast(self, stepper, tf, dt_max, max_steps):
-        """Host-driven adaptive-CFL loop over the fused stepper (reference loop
-        semantics ``timestepping.jl:101-122``: recompute the CFL bound every
-        accepted step). Band overflow is detected *before* the oversized band
-        would be stepped and recovers by regrowing the dispatch list."""
-        from .integrators.band_fused import FusedBandStepper
-
-        import jax
-
-        band = isinstance(stepper, FusedBandStepper)
-        state = stepper.pack(self.state) if band else stepper.pack(self.state.values)
-        has_update = (not band) and stepper._has_update
-        terms_dev = self.terms
-        alpha = self.integrator.cfl
-        eps = jnp.finfo(self.state.dtype).eps * max(abs(tf), 1.0)
-        nsteps = 0
-        while self.t <= tf - eps:
-            if max_steps is not None and nsteps >= max_steps:
-                break
-            if band:
-                cfl_dt, count = jax.device_get(stepper.cfl(state, self.t))
-                if int(count) > stepper.capacity:
-                    stepper, state = stepper.regrow(state)
-                    self._fast_cache = (self.terms, self.integrator,
-                                        stepper.interpret, stepper)
-                cfl_dt = float(cfl_dt)
-            elif has_update:
-                # reference loop order: update_term! with the accepted-step
-                # state, THEN the CFL bound (timestepping.jl:107-111); the
-                # updated terms thread into the stages and persist
-                cfl_dt, terms_dev = stepper.cfl_with_terms(
-                    state, self.t, terms_dev)
-                cfl_dt = float(cfl_dt)
-            else:
-                cfl_dt = float(stepper.cfl(state, self.t))
-            if not (cfl_dt > 0) or math.isnan(cfl_dt):
-                raise ValueError(
-                    f"invalid time-step based on CFL condition: dt = {cfl_dt} "
-                    "(check for NaN/Inf in velocity or speed)"
-                )
-            dt = min(dt_max, alpha * cfl_dt, tf - self.t)
-            if band:
-                # honor the stepper's re-tube cadence, but always re-tube on
-                # the step that lands on tf so unpack() sees current masks
-                retube = ((nsteps + 1) % stepper.retube_every == 0
-                          or self.t + dt > tf - eps)
-                state = stepper.step(state, self.t, dt, retube)
-            elif has_update:
-                state, terms_dev = stepper.step_with_terms(
-                    state, self.t, dt, terms_dev)
-            else:
-                state = stepper.step(state, self.t, dt)
-            self.t += dt
-            nsteps += 1
-        if has_update:
-            self.terms = terms_dev
-        if band:
-            self.state = stepper.unpack(state)
-        else:
-            self.state = self.state.with_values(stepper.unpack(state))
-        if not bool(jnp.all(jnp.isfinite(self.state.values))):
-            raise ArithmeticError(
-                "non-finite state after integrate(); check for NaN/Inf velocities "
-                "or an invalid CFL time step"
-            )
-        if self.t > tf - eps:
-            self.t = tf
-        self.last_fast_path = "band" if band else "fused"
         return self
 
     def __repr__(self):

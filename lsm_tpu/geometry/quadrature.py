@@ -1,6 +1,6 @@
 """High-order quadrature on implicitly defined domains (cut cells).
 
-TPU-native replacement for the reference's ImplicitIntegration extension
+JAX replacement for the reference's ImplicitIntegration extension
 (``/root/reference/ext/ImplicitIntegrationExt.jl``): per active cell, build the
 local Bernstein patch of the level set and generate a quadrature for the volume
 ``{phi < 0}`` or the surface ``{phi = 0}`` by Saye-style dimension reduction

@@ -1,10 +1,10 @@
 """Geometric queries and CSG on level-set fields.
 
-TPU-native analogue of ``/root/reference/src/levelsetops.jl``: smoothed-Heaviside
+JAX analogue of the reference's ``src/levelsetops.jl``: smoothed-Heaviside
 volume, smoothed-Dirac perimeter, centered-difference gradient / normal / Hessian /
 mean curvature, and min/max constructive solid geometry — all as whole-array
 reductions and elementwise maps (``jnp.sum`` replaces the reference's band scanline
-tricks since dense reductions are free on TPU; the narrow-band module reuses these
+tricks since a dense reduction is one fused pass; the narrow-band module reuses these
 with masks).
 """
 

@@ -1,6 +1,6 @@
 """Explicit TVD Runge-Kutta time integrators.
 
-TPU-native analogue of ``/root/reference/src/timestepping.jl:1-202``: each
+JAX analogue of the reference's ``src/timestepping.jl:1-202``: each
 integrator is a tiny frozen (static, hashable) dataclass with a pure
 ``advance(terms, phi, t, dt) -> (phi_new, terms_new)`` stage function, designed to
 be composed under ``jax.jit`` / ``lax.scan`` / ``lax.while_loop`` by the drivers in
@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..core.field import MeshField
-from ..terms.terms import fused_stage_term, total_rhs, update_terms
+from ..terms.terms import total_rhs, update_terms
 
 __all__ = ["TimeIntegrator", "ForwardEuler", "RK2", "RK3"]
 
@@ -24,14 +24,9 @@ __all__ = ["TimeIntegrator", "ForwardEuler", "RK2", "RK3"]
 def _stage(terms, phi, t, aux, coeffs):
     """One RK stage ``alpha*aux + beta*phi - gamma*L(phi, t)`` as values.
 
-    Takes the fused one-HBM-pass Pallas stage kernel when the term list is a
-    single WENO5 advection term (``AdvectionTerm.stage_values``); otherwise the
-    generic rhs + axpy. ``aux`` is a values array or ``None``; ``coeffs =
-    (alpha, beta, gamma)`` with traced scalars welcome.
+    ``aux`` is a values array or ``None``; ``coeffs = (alpha, beta, gamma)``
+    with traced scalars welcome (an adaptive ``dt`` does not recompile).
     """
-    term = fused_stage_term(terms)
-    if term is not None:
-        return term.stage_values(phi, t, aux, coeffs)
     alpha, beta, gamma = coeffs
     out = beta * phi.values - gamma * total_rhs(terms, phi, t)
     if aux is not None:
@@ -72,8 +67,8 @@ class RK2(TimeIntegrator):
     ``timestepping.jl:141-164``)."""
 
     def advance(self, terms, phi, t, dt):
-        # Heun in convex-combination (SSP) form so each stage is one fused
-        # axpy+Hamiltonian pass: pred = phi - dt L(phi);
+        # Heun in convex-combination (SSP) form, one axpy per stage:
+        # pred = phi - dt L(phi);
         # phi_new = 1/2 phi + 1/2 (pred - dt L(pred)).
         terms = update_terms(terms, phi, t)
         pred = phi.with_values(_stage(terms, phi, t, None, (0.0, 1.0, dt)))
@@ -92,7 +87,7 @@ class RK3(TimeIntegrator):
     """Third-order Shu-Osher TVD Runge-Kutta (``timestepping.jl:168-202``)."""
 
     def advance(self, terms, phi, t, dt):
-        # Shu-Osher stages in fused axpy form (one HBM pass per stage):
+        # Shu-Osher stages in axpy form:
         #   u1 = phi - dt L(phi)
         #   u2 = 3/4 phi + 1/4 u1 - 1/4 dt L(u1)
         #   out = 1/3 phi + 2/3 u2 - 2/3 dt L(u2)

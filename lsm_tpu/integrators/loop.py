@@ -4,7 +4,7 @@ Two compiled forms of the reference's ``_integrate!`` outer loop
 (``/root/reference/src/timestepping.jl:101-122``):
 
 - :func:`evolve` — adaptive CFL-driven ``lax.while_loop`` landing exactly on
-  ``tf``. The state-dependent ``dt`` makes this the fast forward-only path.
+  ``tf``; the forward-only path of ``LevelSetEquation.integrate``.
 - :func:`rollout` — fixed-step ``lax.scan`` over ``nsteps``; fully reverse-mode
   differentiable (gradients of the evolved phi flow through every step), the
   path the reference never had.
@@ -28,15 +28,13 @@ from .explicit import TimeIntegrator
 __all__ = ["evolve", "rollout", "step"]
 
 
-def _scan_steps(step_fn, carry, nsteps, unroll, remat, remat_chunk):
+def _scan_steps(step_fn, carry, nsteps, remat, remat_chunk):
     """``carry = step_fn(carry)`` repeated ``nsteps`` times under ``lax.scan``.
 
     ``remat=True`` wraps each step in :func:`jax.checkpoint` so the scan's
-    backward saves only the step-INPUT carry per step (one padded buffer at
-    512^3) instead of every stage's custom-VJP residuals (~3 buffers/step —
-    compile-time HBM OOM past ~8 RK3 steps at 512^3, VERDICT r4 missing #1).
-    Forward-only evaluation is unaffected: checkpoint adds no work unless the
-    scan is differentiated.
+    backward saves only the step-INPUT carry per step instead of every RK
+    stage's residuals. Forward-only evaluation is unaffected: checkpoint adds
+    no work unless the scan is differentiated.
 
     ``remat_chunk=K`` adds a second remat level for long horizons: an outer
     scan over checkpointed K-step chunks, so peak residual memory is
@@ -53,7 +51,7 @@ def _scan_steps(step_fn, carry, nsteps, unroll, remat, remat_chunk):
 
         @jax.checkpoint
         def chunk_fn(c):
-            c, _ = jax.lax.scan(body, c, None, length=chunk, unroll=unroll)
+            c, _ = jax.lax.scan(body, c, None, length=chunk)
             return c
 
         def outer(c, _):
@@ -61,10 +59,9 @@ def _scan_steps(step_fn, carry, nsteps, unroll, remat, remat_chunk):
 
         carry, _ = jax.lax.scan(outer, carry, None, length=nchunks)
         if rem:
-            carry, _ = jax.lax.scan(body, carry, None, length=rem,
-                                    unroll=unroll)
+            carry, _ = jax.lax.scan(body, carry, None, length=rem)
         return carry
-    carry, _ = jax.lax.scan(body, carry, None, length=nsteps, unroll=unroll)
+    carry, _ = jax.lax.scan(body, carry, None, length=nsteps)
     return carry
 
 
@@ -126,75 +123,7 @@ def evolve(
     return phi, terms, t, n
 
 
-def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, unroll, fast,
-                   remat, remat_chunk):
-    """Scan over the fused Pallas steppers when the configuration qualifies
-    (their stages carry custom VJPs, so the rollout stays differentiable).
-    Returns ``None`` when not applicable."""
-    from ..core.narrowband import NarrowBandField
-    from .band_fused import FusedBandStepper, supports_band_fused
-    from .fused import FusedStepper, supports_fused
-
-    interpret = fast == "interpret"
-    if not interpret and jax.default_backend() in ("cpu", "interpreter"):
-        return None
-    if not isinstance(integrator, TimeIntegrator):
-        return None
-    dtype = phi.dtype
-    dt = jnp.asarray(dt, dtype)
-    t0 = jnp.asarray(t0, dtype)
-    if isinstance(phi, NarrowBandField):
-        if not supports_band_fused(terms, phi):
-            return None
-        # capacity = all tiles: static (rollout may be traced under jax.grad,
-        # where counting active tiles is impossible); sentinel programs are
-        # cheap relative to the differentiable use case
-        stepper = FusedBandStepper(
-            terms, phi, integrator, capacity=_total_tiles(phi.shape),
-            interpret=interpret)
-        state = stepper.pack(phi)
-
-        def one(carry):
-            state, t = carry
-            return stepper._step_impl(state, t, dt), t + dt
-
-        state, _ = _scan_steps(one, (state, t0), nsteps, unroll, remat,
-                               remat_chunk)
-        return stepper.unpack(state), terms
-    if supports_fused(terms, phi):
-        stepper = FusedStepper(terms, phi, integrator, interpret=interpret)
-        P = stepper.pack(phi.values)
-
-        if stepper._has_update:
-            def one(carry):
-                P, t, tms = carry
-                P, tms = stepper._step_terms_impl(P, t, dt, tms)
-                return P, t + dt, tms
-
-            P, _, terms = _scan_steps(one, (P, t0, terms), nsteps, unroll,
-                                      remat, remat_chunk)
-            return phi.with_values(stepper.unpack(P)), terms
-
-        def one(carry):
-            P, t = carry
-            return stepper._step_impl(P, t, dt), t + dt
-
-        P, _ = _scan_steps(one, (P, t0), nsteps, unroll, remat, remat_chunk)
-        return phi.with_values(stepper.unpack(P)), terms
-    return None
-
-
-def _total_tiles(shape):
-    from .band_fused import _default_tiles
-
-    total = 1
-    for n, b in zip(shape, _default_tiles(tuple(shape))):
-        total *= n // b
-    return total
-
-
-@partial(jax.jit, static_argnames=("integrator", "nsteps", "unroll", "fast",
-                                   "remat", "remat_chunk"))
+@partial(jax.jit, static_argnames=("integrator", "nsteps", "remat", "remat_chunk"))
 def rollout(
     integrator: TimeIntegrator,
     terms,
@@ -202,33 +131,18 @@ def rollout(
     t0,
     dt,
     nsteps: int,
-    unroll: int = 1,
-    fast: str = "auto",
     remat: bool = True,
     remat_chunk: Optional[int] = None,
 ):
     """Fixed-step differentiable rollout: ``nsteps`` steps of size ``dt`` under
     ``lax.scan``. Returns ``(phi, terms)`` at ``t0 + nsteps * dt``.
 
-    ``fast`` selects the execution path exactly as in
-    :meth:`lsm_tpu.equation.LevelSetEquation.integrate`: ``"auto"`` scans the
-    fused Pallas steppers (custom-VJP stages — still differentiable) whenever
-    the configuration qualifies on a compiled backend; ``"off"`` forces the
-    generic path; ``"interpret"`` forces the fused path in interpret mode.
-
     ``remat`` (default on) wraps each step in :func:`jax.checkpoint`, so a
     differentiated rollout saves ONE step-input buffer per step instead of
-    every RK stage's custom-VJP residuals — the difference between a 512^3
-    RK3 horizon of ~8 steps (compile-time HBM OOM) and 20+ steps on a 16 GB
-    chip. Forward-only rollouts pay nothing for it. ``remat_chunk=K`` trades
-    a second recompute level for ``nsteps/K + K`` saved buffers on longer
-    horizons.
+    every RK stage's residuals; forward-only rollouts pay nothing for it.
+    ``remat_chunk=K`` trades a second recompute level for ``nsteps/K + K``
+    saved buffers on longer horizons.
     """
-    if fast != "off":
-        out = _fused_rollout(integrator, terms, phi, t0, dt, nsteps, unroll,
-                             fast, remat, remat_chunk)
-        if out is not None:
-            return out
     dtype = phi.dtype
     dt = jnp.asarray(dt, dtype)
 
@@ -239,5 +153,5 @@ def rollout(
         return phi, terms, t + dt
 
     phi, terms, _ = _scan_steps(one, (phi, terms, jnp.asarray(t0, dtype)),
-                                nsteps, unroll, remat, remat_chunk)
+                                nsteps, remat, remat_chunk)
     return phi, terms

@@ -1,13 +1,13 @@
 """Semi-implicit I2OE advection integrator (Mikula et al.), matrix-free.
 
-TPU-native analogue of the reference's ``SemiImplicitI2OE``
+JAX analogue of the reference's ``SemiImplicitI2OE``
 (``/root/reference/src/timestepping.jl:204-427``): the inflow part of each face
 flux is implicit, the outflow part explicit, which keeps the scheme stable at
 CFL >> 1 (default safety factor 2.0 vs 0.5 explicit).
 
 The reference assembles one global sparse matrix per step and direct-solves it.
-A sparse triplet assembly + LU is hostile to TPU; here the same linear system is
-applied **matrix-free** as a stencil operator
+A sparse triplet assembly + LU does not map onto whole-array XLA programs; here
+the same linear system is applied **matrix-free** as a stencil operator
 
     A(u) = u + fac * sum_faces a_in * (u - u_nb(u))
 

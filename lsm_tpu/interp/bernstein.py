@@ -1,6 +1,6 @@
 """Tensor-product Bernstein polynomials, batched.
 
-TPU-native analogue of ``/root/reference/src/bernstein.jl``: instead of a scalar
+JAX analogue of the reference's ``src/bernstein.jl``: instead of a scalar
 de-Casteljau recursion per point, coefficients live in arrays with ``N`` trailing
 coefficient axes and evaluation is a sequence of basis-vector contractions —
 differentiable with ``jax.grad`` (replacing ForwardDiff) and batchable with
@@ -69,8 +69,8 @@ def bernstein_eval(coeffs: jnp.ndarray, lo, hi, x) -> jnp.ndarray:
         remaining = ndim - d  # coefficient axes still uncontracted (the last ones)
         deg = out.shape[-remaining] - 1
         basis = bernstein_basis(deg, t[d]).astype(out.dtype)
-        # HIGHEST: TPU matmuls default to bf16 inputs — fatal for the
-        # high-order interpolation/SDF oracle (see core/bc.py note)
+        # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU —
+        # fatal for the high-order interpolation/SDF oracle (see core/bc.py)
         moved = jnp.moveaxis(out, -remaining, -1)
         out = jax.lax.dot_general(
             moved, basis, (((moved.ndim - 1,), (0,)), ((), ())),

@@ -1,10 +1,10 @@
 """Continuous fields: piecewise tensor-product Bernstein interpolation.
 
-TPU-native analogue of ``/root/reference/src/interpolation.jl``. The reference
+JAX analogue of the reference's ``src/interpolation.jl``. The reference
 fills one cell's Bernstein coefficients lazily per task with a memo; here the
 coefficients of EVERY cell are computed in one shot as a batched Kronecker
 application — per dimension, a stack of ``nv`` shifted slices contracted with the
-shared 1-D interpolation matrix (einsum on the MXU) — and evaluation is gather +
+shared 1-D interpolation matrix (one contraction) — and evaluation is gather +
 vmapped polynomial contraction over arbitrary batches of query points.
 Differentiation uses ``jax.grad``/``jax.hessian`` of the patch evaluation
 (replacing ForwardDiff), fused via ``value_and_gradient`` etc.
@@ -68,7 +68,9 @@ def _all_cell_coeffs(padded: jnp.ndarray, mat: jnp.ndarray, cells_shape, pad: in
             sl[d] = slice(start + k, start + k + cells_shape[d])
             slabs.append(A[tuple(sl)])
         S = jnp.stack(slabs, axis=0)  # (nv, ...)
-        A = jnp.tensordot(mat, S, axes=[[1], [0]])  # (nc, ...)
+        # HIGHEST: float32 contractions may otherwise run in TF32 on a GPU
+        A = jnp.tensordot(mat, S, axes=[[1], [0]],
+                          precision=jax.lax.Precision.HIGHEST)  # (nc, ...)
         A = jnp.moveaxis(A, 0, -1)  # spatial axes stay in place, coeff axes trail
     return A
 

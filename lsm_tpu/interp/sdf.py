@@ -1,14 +1,14 @@
 """High-order signed distance via Newton closest points — the accuracy oracle.
 
-TPU-native analogue of ``/root/reference/src/sdf.jl`` (Saye 2014): sample the
+JAX analogue of the reference's ``src/sdf.jl`` (Saye 2014): sample the
 interface by Newton-projecting seeds onto ``{phi = 0}`` of the Bernstein
 interpolant, then answer ``sdf(x)`` by nearest-sample seeding + a constrained
 (KKT) Newton solve of ``min |x - p|^2 s.t. phi(p) = 0``.
 
 The reference threads per-cell sampling and uses a KDTree; here every stage is a
 dense batched computation: all seeds project simultaneously under ``vmap``,
-nearest-neighbor search is a (chunked) distance reduction on the MXU, and the KKT
-Newton iterations run lockstep across all query points with converged lanes frozen
+nearest-neighbor search is a jump-flood seed grid, and the KKT Newton
+iterations run lockstep across all query points with converged points frozen
 by ``where``. ``reinitialize_newton`` evaluates the SDF at every grid node in one
 batch (the map of ``reinitializer.jl``).
 """
@@ -91,14 +91,14 @@ class NewtonSDF:
             nonempty = np.asarray(~cf.proven_empty(surface=True))  # (cells...)
             cell_idx = jnp.asarray(np.argwhere(nonempty))  # (ncut, N)
         else:
-            # jittable build (VERDICT r2 weak #8): capacity-bounded nonzero so
+            # jittable build: capacity-bounded nonzero so
             # the whole construction traces — usable inside compiled
             # evolutions. Sentinel entries (flat index 0) are marked invalid.
             # NOTE ``jnp.nonzero(size=...)`` silently TRUNCATES when the true
             # cut-cell count exceeds the capacity — whole interface pieces
             # would go unsampled and distances overestimated. ``overflowed``
             # records that condition (a traced bool under jit; check it after
-            # the build, the band-stepper pattern — ADVICE r3).
+            # the build).
             flat = ~cf.proven_empty(surface=True).ravel()
             n_cut = jnp.sum(flat, dtype=jnp.int32)
             self.overflowed = n_cut > max_cut_cells
@@ -147,12 +147,11 @@ class NewtonSDF:
     # -- nearest-sample seeding ----------------------------------------------------
     #
     # The reference uses a KDTree (O(log n) per query, ``sdf.jl:71-73,111``);
-    # the round-3 TPU stand-in was a brute-force chunked distance matrix —
-    # O(n_queries x n_samples), ~1e13 MXU ops for a whole-grid reinit at 256^3
-    # (VERDICT r3 weak #4). The device-native equivalent built here is a
-    # JUMP-FLOOD seed grid: samples are binned to their nearest grid node
-    # (deterministic min-distance collision resolution via an ordered
-    # scatter-max), then log2(n) flood passes propagate each node's nearest
+    # a brute-force chunked distance matrix would cost O(n_queries x
+    # n_samples), ~1e13 operations for a whole-grid reinit at 256^3. The
+    # device-native equivalent built here is a JUMP-FLOOD seed grid: samples
+    # are binned to their nearest grid node (deterministic min-distance
+    # collision resolution via an ordered scatter-max), then log2(n) flood passes propagate each node's nearest
     # sample position across the grid (1+JFA schedule; 3^N shifted-gather
     # compares per pass). O(grid log grid) total, independent of the sample
     # count; the seed it returns is within one flood-approximation of the true
@@ -265,7 +264,7 @@ class NewtonSDF:
     def _nearest_seed_positions(self, x: jnp.ndarray, k: int = 3) -> jnp.ndarray:
         """``(..., k, ndim)`` candidate seeds per query, by increasing
         distance: the jump-flood nearest samples of the query's node and its
-        face neighbors (the TPU counterpart of the reference's
+        face neighbors (the whole-array counterpart of the reference's
         next-nearest-seed retries, ``sdf.jl:110-126``)."""
         grid = self.cf.grid
         ndim = grid.ndim

@@ -1,6 +1,6 @@
 """Surface / contour extraction via the native C++ library.
 
-TPU-native counterpart of the reference's mesh-export extensions
+Counterpart of the reference's mesh-export extensions
 (``/root/reference/ext/MMGSurfaceExt.jl``, ``ext/MMGVolumeExt.jl``): the hot PDE
 path stays on device; extraction and file export are host-side native code —
 ``native/marching.cpp`` compiled to ``liblsm_native.so`` (built on demand with

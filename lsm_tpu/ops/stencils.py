@@ -1,22 +1,32 @@
 """Whole-array finite-difference / WENO stencil operators.
 
-TPU-native form of the reference's pointwise per-node operators
-(``/root/reference/src/derivatives.jl``): every operator maps a *ghost-padded* array
-``p`` (pad width ``g`` on each side of every spatial axis, produced by
-``MeshField.pad`` / ``pad_ghost``) to an interior-shaped array, expressed as shifted
-dense slices that XLA fuses into a single vectorized loop (and that the Pallas
-kernels in :mod:`lsm_tpu.ops.weno_kernels` reimplement as fused VMEM tiles).
+The reference's pointwise per-node operators (``src/derivatives.jl``) as
+whole-array JAX functions: every operator maps a *ghost-padded* array ``p`` (pad
+width ``g`` on each side of every spatial axis, produced by ``MeshField.pad`` /
+``pad_ghost``) to an interior-shaped array, expressed as shifted dense slices that
+XLA fuses into a few elementwise loops.
 
 Required pad widths: first derivatives and centered second derivatives need
 ``g >= 1``; the mixed second derivative needs corner ghosts with ``g >= 1``; the
 second-order ENO combinations need ``g >= 2``; WENO5 needs ``g >= 3``
 (reference stencil reach: ``derivatives.jl:89-121``).
+
+The WENO5 advection Hamiltonian has two entry points with the same forward:
+:func:`weno5_advection_plain` (differentiated by autodiff) and
+:func:`weno5_advection` (a ``jax.custom_vjp`` whose backward is the hand-derived
+adjoint :func:`weno5_upwind_fwd_bwd`). The terms use the latter: in float32 the
+autodiff backward is wrong by order 1 at cells where the WENO smoothness
+indicators tie, and the hand adjoint is not.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import math
+from functools import partial
+
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -33,6 +43,10 @@ __all__ = [
     "d2_mixed",
     "weno5m",
     "weno5p",
+    "weno5_upwind",
+    "weno5_upwind_fwd_bwd",
+    "weno5_advection",
+    "weno5_advection_plain",
     "minmod",
     "eno2_onesided",
     "godunov_norms",
@@ -43,26 +57,18 @@ PAD_ENO2 = 2
 PAD_WENO5 = 3
 
 
-def shift(
-    p: jnp.ndarray, offsets, g, shape: Sequence[int]
-) -> jnp.ndarray:
+def shift(p: jnp.ndarray, offsets, g: int, shape: Sequence[int]) -> jnp.ndarray:
     """Interior-shaped view ``phi[I + offsets]`` of a padded array.
 
-    ``offsets`` is a per-spatial-dim tuple of integer shifts. ``g`` is the ghost
-    width — an int (uniform) or a per-spatial-dim tuple (the fused kernels pad
-    the sublane dim wider for DMA alignment). Leading (component) axes of ``p``
-    beyond ``len(shape)`` are passed through.
+    ``offsets`` is a per-spatial-dim tuple of integer shifts and ``g`` the ghost
+    width. Leading (component) axes of ``p`` beyond ``len(shape)`` are passed
+    through.
     """
-    if hasattr(p, "shift_view"):
-        # virtual padded arrays (e.g. the fused kernels' lane-roll slab view)
-        # synthesize shifted tiles themselves; ``g`` is baked into the view
-        return p.shift_view(tuple(offsets), tuple(shape))
     nspatial = len(shape)
     lead = p.ndim - nspatial
-    gs = (g,) * nspatial if isinstance(g, int) else tuple(g)
     sl = [slice(None)] * lead
     for d in range(nspatial):
-        off = gs[d] + offsets[d]
+        off = g + offsets[d]
         sl.append(slice(off, off + shape[d]))
     return p[tuple(sl)]
 
@@ -167,7 +173,7 @@ def _weno_eps(vmax, dtype):
     return 1.0e-6 * vmax + floor
 
 
-def _weno_combine(s1, s2, s3, eps, d1, d2, d3, recip=None):
+def _weno_combine(s1, s2, s3, eps, d1, d2, d3):
     """Weighted combination with ONE division (plus one shared reciprocal).
 
     Classic form needs four divisions (three ``a_i = g_i/(s_i+eps)^2`` plus the
@@ -177,12 +183,8 @@ def _weno_combine(s1, s2, s3, eps, d1, d2, d3, recip=None):
     The ``1/eps`` normalization keeps every intermediate in fp32 range:
     ``1 <= b_i <= ~26/1e-6`` so ``(b_j b_k)^2 <= ~5e29 < fp32 max``, and a flat
     stencil gives ``b_i = 1`` -> exact 0.1/0.6/0.3 weights (never 0/0).
-
-    ``recip`` optionally replaces the two reciprocals (the fused TPU kernels
-    pass a Newton-refined ``pl.reciprocal`` whose ~2^-26 relative error is
-    below f32 division rounding — VPU divisions are many-cycle).
     """
-    r = (1.0 / eps) if recip is None else recip(eps)
+    r = 1.0 / eps
     b1 = s1 * r + 1.0
     b2 = s2 * r + 1.0
     b3 = s3 * r + 1.0
@@ -190,53 +192,11 @@ def _weno_combine(s1, s2, s3, eps, d1, d2, d3, recip=None):
     q2 = 0.6 * (b1 * b3) ** 2
     q3 = 0.3 * (b1 * b2) ** 2
     qsum = q1 + q2 + q3
-    w = (1.0 / qsum) if recip is None else recip(qsum)
+    w = 1.0 / qsum
     return (q1 * d1 + q2 * d2 + q3 * d3) * w
 
 
-def weno5_pair(dm):
-    """Fused (weno5-, weno5+) from the six shared backward differences ``dm[k]``,
-    ``k = -2..3`` relative to node ``I`` (i.e. ``dm[j] = D- at I + j - 2``).
-
-    Shares the difference table between the left- and right-biased
-    reconstructions: ``e[k]`` (first differences of ``dm``) and ``c[k]`` (second
-    differences) appear in the Jiang-Shu indicators of BOTH biases, saving ~35%
-    of the arithmetic vs. two independent ``_weno_core`` calls; combined with the
-    one-division weight form this is the arithmetic layout the fused Pallas
-    kernel uses. Identical in exact arithmetic to
-    ``(_weno_core(dm[0..4]), _weno_core(dm[5],dm[4],dm[3],dm[2],dm[1]))``.
-    """
-    dtype = jnp.result_type(dm[0])
-    c13 = 13.0 / 12.0
-    e = [dm[k + 1] - dm[k] for k in range(5)]
-    c = [e[k + 1] - e[k] for k in range(4)]
-    c_sq = [ck * ck for ck in c]
-    # minus-biased (stencil dm[0..4])
-    s1m = c13 * c_sq[0] + 0.25 * (c[0] + 2.0 * e[1]) ** 2
-    s2m = c13 * c_sq[1] + 0.25 * (e[1] + e[2]) ** 2
-    s3m = c13 * c_sq[2] + 0.25 * (c[2] - 2.0 * e[2]) ** 2
-    # plus-biased (stencil dm[5..1], i.e. the reflection)
-    s1p = c13 * c_sq[3] + 0.25 * (c[3] - 2.0 * e[3]) ** 2
-    s2p = c13 * c_sq[2] + 0.25 * (e[2] + e[3]) ** 2
-    s3p = c13 * c_sq[1] + 0.25 * (c[1] + 2.0 * e[2]) ** 2
-    sq = [v * v for v in dm]
-    mid = jnp.maximum(
-        jnp.maximum(sq[1], sq[2]), jnp.maximum(sq[3], sq[4])
-    )  # shared dm[1..4]
-    eps_m = _weno_eps(jnp.maximum(mid, sq[0]), dtype)
-    eps_p = _weno_eps(jnp.maximum(mid, sq[5]), dtype)
-    d1m = (1.0 / 3.0) * dm[0] - (7.0 / 6.0) * dm[1] + (11.0 / 6.0) * dm[2]
-    d2m = -(1.0 / 6.0) * dm[1] + (5.0 / 6.0) * dm[2] + (1.0 / 3.0) * dm[3]
-    d3m = (1.0 / 3.0) * dm[2] + (5.0 / 6.0) * dm[3] - (1.0 / 6.0) * dm[4]
-    d1p = (1.0 / 3.0) * dm[5] - (7.0 / 6.0) * dm[4] + (11.0 / 6.0) * dm[3]
-    d2p = -(1.0 / 6.0) * dm[4] + (5.0 / 6.0) * dm[3] + (1.0 / 3.0) * dm[2]
-    d3p = (1.0 / 3.0) * dm[3] + (5.0 / 6.0) * dm[2] - (1.0 / 6.0) * dm[1]
-    minus = _weno_combine(s1m, s2m, s3m, eps_m, d1m, d2m, d3m)
-    plus = _weno_combine(s1p, s2p, s3p, eps_p, d1p, d2p, d3p)
-    return minus, plus
-
-
-def weno5_upwind(dm, u, recip=None):
+def weno5_upwind(dm, u):
     """Upwinded WENO5 advection contribution ``u * (u>0 ? weno5- : weno5+)``
     along one axis, from the six shared backward differences ``dm`` (see
     :func:`weno5_pair_diffs`) and that axis's velocity component ``u``.
@@ -246,15 +206,13 @@ def weno5_upwind(dm, u, recip=None):
     the sign of ``u`` and run ONE core — the plus-biased core is the minus core
     on the reflected stencil ``(dm5,dm4,dm3,dm2,dm1)``, so five ``where``s
     replace an entire second set of smoothness indicators, weights, and
-    candidates (~2x less VPU arithmetic; WENO5 on TPU is compute-bound).
-    Identical result: at ``u == 0`` both forms pick the plus branch and
+    candidates (about half the arithmetic). Identical result: at ``u == 0`` both forms pick the plus branch and
     multiply by zero.
 
     Arithmetic layout: the Jiang-Shu indicators and the 3rd-order candidates
     are expressed through the shared first/second difference tables
     ``e_k = v_{k+1}-v_k`` / ``c_k = e_{k+1}-e_k`` (algebraically identical to
-    the textbook form, ~25% fewer VPU ops). ``recip`` as in
-    :func:`_weno_combine`.
+    the textbook form, ~25% fewer operations).
     """
     cond = u > 0
     v1 = jnp.where(cond, dm[0], dm[5])
@@ -284,32 +242,24 @@ def weno5_upwind(dm, u, recip=None):
         v5 * v5,
     )
     eps = _weno_eps(vmax, jnp.result_type(v1))
-    return u * _weno_combine(s1, s2, s3, eps, d1, d2, d3, recip)
+    return u * _weno_combine(s1, s2, s3, eps, d1, d2, d3)
 
 
-def weno5_upwind_fwd_bwd(dm, u, g, recip=None):
+def weno5_upwind_fwd_bwd(dm, u, g):
     """Forward value AND hand-derived cotangents of :func:`weno5_upwind` in
-    one pass: ``(H, ddm[6], dcore_du)`` with ``H = u * core`` and ``g`` the
-    cotangent of ``H``. ``dcore_du = core * g`` is the ``u`` cotangent.
+    one pass: ``(H, ddm[6], du)`` with ``H = u * core``, ``g`` the cotangent of
+    ``H`` and ``du = core * g`` the cotangent of ``u``.
 
-    Exists because the fused Pallas backward kernel may not use
-    ``jax.custom_vjp`` (array-residual custom VJPs miscompile under a
-    kernel-level ``jax.vjp`` — see the round-4 note in ``weno_v2``), and the
-    mechanical ``jax.vjp`` reverse of the WENO chain costs ~2.7x the forward;
-    this explicit backward reuses every forward intermediate and costs ~1.3x.
-    Plain jnp ops only — Mosaic-safe inside kernels, and differentiable
-    itself should anyone ever need second order through the fallback paths.
+    The mechanical ``jax.vjp`` reverse of the WENO chain costs ~2.7x the
+    forward and, in float32, is wrong by order 1 at cells whose smoothness
+    indicators tie (the eps path multiplies a catastrophically cancelled
+    ``dr`` by ``r^2 ~ 1e21``). This explicit backward reuses every forward
+    intermediate, costs ~1.3x, and matches the float64 gradient there.
 
-    Matches ``jax.vjp(weno5_upwind)`` elementwise (same operations, same
-    branch structure); the ``vmax`` maximum tree replicates JAX's
-    tie-splitting semantics (0.5/0.5 on exact ties — ``lax._balanced_eq``),
-    so flat regions where all ``v_i^2`` tie give bitwise-matching subgradients.
-
-    ``recip`` as in :func:`_weno_combine`. Unlike the autodiff route, a fast
-    reciprocal IS safe here (the hazard was custom-vjp primitives under a
-    kernel-level ``jax.vjp``; this is plain forward code), and the backward
-    uses the analytic ``d(1/x) = -r^2`` with the same approximate ``r`` —
-    consistent to the approximation's 2^-26 relative error.
+    Same branch structure as ``jax.vjp(weno5_upwind)``; the ``vmax`` maximum
+    tree replicates JAX's tie-splitting semantics (0.5/0.5 on exact ties —
+    ``lax._balanced_eq``), so flat regions where all ``v_i^2`` tie give the
+    same subgradients as autodiff.
     """
     cond = u > 0
     v1 = jnp.where(cond, dm[0], dm[5])
@@ -339,7 +289,7 @@ def weno5_upwind_fwd_bwd(dm, u, g, recip=None):
     m14 = jnp.maximum(m12, m34)
     vmax = jnp.maximum(m14, sq5)
     eps = _weno_eps(vmax, jnp.result_type(v1))
-    r = (1.0 / eps) if recip is None else recip(eps)
+    r = 1.0 / eps
     b1 = s1 * r + 1.0
     b2 = s2 * r + 1.0
     b3 = s3 * r + 1.0
@@ -350,7 +300,7 @@ def weno5_upwind_fwd_bwd(dm, u, g, recip=None):
     q2 = 0.6 * (p2 * p2)
     q3 = 0.3 * (p3 * p3)
     qsum = q1 + q2 + q3
-    w = (1.0 / qsum) if recip is None else recip(qsum)
+    w = 1.0 / qsum
     core = (q1 * d1 + q2 * d2 + q3 * d3) * w
     H = u * core
 
@@ -437,10 +387,97 @@ def weno5_upwind_fwd_bwd(dm, u, g, recip=None):
 
 def weno5_pair_diffs(p, axis, h, g, shape):
     """The six backward differences ``D- at I-2 .. I+3`` along ``axis`` feeding
-    :func:`weno5_pair` (shared between both biases: ``D+ at I+m == D- at I+m+1``)."""
+    :func:`weno5_upwind` (shared between both biases: ``D+ at I+m == D- at I+m+1``)."""
     s = [_s(p, axis, k, g, shape) for k in range(-3, 4)]  # offsets -3..3
     inv_h = 1.0 / h
     return [(s[k + 1] - s[k]) * inv_h for k in range(6)]
+
+
+def weno5_advection_plain(padded, u, spacing, shape):
+    """WENO5 advection Hamiltonian ``sum_d u_d * (u_d > 0 ? weno5- : weno5+)``
+    on a field padded by ``PAD_WENO5``; ``u`` holds one interior-shaped velocity
+    component per axis. Differentiated by plain autodiff: the reference that
+    :func:`weno5_advection` is checked against."""
+    out = 0.0
+    for ax, h in enumerate(spacing):
+        dm = weno5_pair_diffs(padded, ax, h, PAD_WENO5, shape)
+        out = out + weno5_upwind(dm, u[ax])
+    return out
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(2, 3))
+def weno5_advection(padded, u, spacing, shape):
+    """:func:`weno5_advection_plain` with the hand-derived adjoint as its VJP.
+
+    ``spacing`` and ``shape`` are static tuples. The backward recomputes the
+    forward from the inputs (no residuals beyond ``padded`` and ``u``) through
+    :func:`weno5_upwind_fwd_bwd`, and maps the difference-table cotangents back
+    onto ``padded`` with the VJP of the (linear) difference construction.
+    """
+    return weno5_advection_plain(padded, u, spacing, shape)
+
+
+#: cells per slab of the backward pass: XLA materializes a few dozen
+#: temporaries of the slab's size, so a whole 512^3 grid at once needs more
+#: memory than an 80 GB card holds
+BWD_SLAB_CELLS = 1 << 24
+
+
+def _weno5_advection_fwd(padded, u, spacing, shape):
+    return weno5_advection_plain(padded, u, spacing, shape), (padded, u)
+
+
+def _vjp_block(padded, u, g, spacing, shape):
+    d_padded = jnp.zeros_like(padded)
+    d_u = []
+    for ax, h in enumerate(spacing):
+        dm, dm_vjp = jax.vjp(
+            lambda p: tuple(weno5_pair_diffs(p, ax, h, PAD_WENO5, shape)), padded
+        )
+        _, ddm, du = weno5_upwind_fwd_bwd(dm, u[ax], g)
+        d_padded = d_padded + dm_vjp(tuple(ddm))[0]
+        d_u.append(du)
+    return d_padded, tuple(d_u)
+
+
+def _slab_rows(shape) -> int:
+    """Rows of axis 0 per backward slab: the largest divisor of ``shape[0]``
+    whose slab holds at most ``BWD_SLAB_CELLS`` cells (at least one row)."""
+    row = math.prod(shape[1:])
+    best = 1
+    for rows in range(1, shape[0] + 1):
+        if shape[0] % rows == 0 and rows * row <= BWD_SLAB_CELLS:
+            best = rows
+    return best
+
+
+def _weno5_advection_bwd(spacing, shape, res, g):
+    # scan over slabs of axis 0 (one slab on small grids); each reads its rows
+    # plus the stencil halo and adds its cotangent into the overlapping padded
+    # rows it read
+    padded, u = res
+    rows = _slab_rows(shape)
+    G = PAD_WENO5
+    slab_shape = (rows,) + tuple(shape[1:])
+
+    def body(carry, i):
+        d_padded, d_u = carry
+        r0 = i * rows
+        take = lambda a, n: jax.lax.dynamic_slice_in_dim(a, r0, n, axis=0)
+        dp, du = _vjp_block(take(padded, rows + 2 * G), tuple(take(c, rows) for c in u),
+                            take(g, rows), spacing, slab_shape)
+        d_padded = jax.lax.dynamic_update_slice_in_dim(
+            d_padded, take(d_padded, rows + 2 * G) + dp, r0, axis=0)
+        d_u = tuple(jax.lax.dynamic_update_slice_in_dim(a, b, r0, axis=0)
+                    for a, b in zip(d_u, du))
+        return (d_padded, d_u), None
+
+    init = (jnp.zeros_like(padded), tuple(jnp.zeros(shape, g.dtype) for _ in u))
+    (d_padded, d_u), _ = jax.lax.scan(body, init, jnp.arange(shape[0] // rows))
+    return d_padded, type(u)(d_u)
+
+
+weno5_advection.defvjp(_weno5_advection_fwd, _weno5_advection_bwd)
 
 
 def weno5m(p, axis, h, g, shape):

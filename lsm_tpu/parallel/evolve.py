@@ -2,8 +2,8 @@
 
 Puts the reference's ENTIRE adaptive time loop (``_integrate!``,
 ``/root/reference/src/timestepping.jl:101-122``) inside one ``shard_map``: each
-shard runs the ``lax.while_loop`` on its local block, ghost layers move over ICI
-(:func:`lsm_tpu.parallel.halo.halo_pad_axis`), and the CFL bound — a min over
+shard runs the ``lax.while_loop`` on its local block, ghost layers move between
+devices by ``ppermute`` (:func:`lsm_tpu.parallel.halo.halo_pad_axis`), and the CFL bound — a min over
 *active* nodes globally (``levelsetterms.jl:22-38``) — becomes a shard-local
 masked reduction followed by ``jax.lax.pmin`` over the mesh axes, so every
 shard takes the same ``dt`` and the loop stays in lockstep without host trips.
@@ -178,32 +178,6 @@ def _mesh_layout(mesh: Mesh, ndim: int):
 
 
 def make_sharded_evolve(
-    integrator,
-    mesh: Mesh,
-    grid: Grid,
-    dt_max=jnp.inf,
-    max_steps: Optional[int] = None,
-    is_band: bool = False,
-    nlayers: int = 3,
-    fused: bool = False,
-    interpret: bool = False,
-):
-    if fused:
-        # round-4: run the Pallas padded-state kernels per shard instead of
-        # the jnp stencils (same adaptive loop, pmin CFL, halo refresh)
-        if is_band:
-            raise ValueError("fused sharded evolution is dense-only")
-        from .fused_evolve import make_sharded_fused_evolve
-
-        return make_sharded_fused_evolve(
-            integrator, mesh, grid, dt_max=dt_max, max_steps=max_steps,
-            interpret=interpret,
-        )
-    return _make_sharded_evolve_jnp(integrator, mesh, grid, dt_max, max_steps,
-                                    is_band, nlayers)
-
-
-def _make_sharded_evolve_jnp(
     integrator,
     mesh: Mesh,
     grid: Grid,

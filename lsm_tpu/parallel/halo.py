@@ -1,12 +1,11 @@
 """Explicit halo exchange over the device mesh (shard_map + ppermute).
 
 The auto-SPMD path (:mod:`lsm_tpu.parallel.sharding`) lets XLA infer the
-collectives; this module is the hand-written equivalent the benchmark and Pallas
-kernels build on: the grid is domain-decomposed over mesh axes, and ghost layers
-come from
+collectives; this module is the hand-written equivalent the sharded evolution
+builds on: the grid is domain-decomposed over mesh axes, and ghost layers come from
 
 - **interior faces**: ``jax.lax.ppermute`` ring shifts of edge slabs (width = the
-  stencil reach, 3 for WENO5) riding ICI,
+  stencil reach, 3 for WENO5),
 - **physical faces** (outermost shards): the ordinary BC ghost blocks of
   :mod:`lsm_tpu.core.bc` computed from shard-local data,
 - **periodic wrap**: the ring permute *with the duplicated-endpoint correction*

@@ -2,15 +2,16 @@
 
 The reference has no distributed backend (threads only; SURVEY.md section 2.3) — this
 layer is new surface. The domain decomposition IS the grid: the phi array is sharded
-over a ``jax.sharding.Mesh`` of TPU chips, one named mesh axis per (leading) spatial
+over a ``jax.sharding.Mesh`` of devices, one named mesh axis per (leading) spatial
 dimension. Two execution paths:
 
 - **auto-SPMD (this module)**: annotate shardings on the step inputs/outputs and let
   XLA's partitioner insert the halo collectives for the shifted-slice stencils
-  (collective-permutes over ICI). Correct for every operator in the library.
+  (collective-permutes). Correct for every operator in the library; the
+  differentiable rollout uses it.
 - **explicit halo exchange** (:mod:`lsm_tpu.parallel.halo`): ``shard_map`` +
   ``ppermute`` 3-wide halos with physical BCs applied only on outermost shards —
-  the hand-tuned path used by the benchmark and the Pallas kernels.
+  the path of :func:`lsm_tpu.parallel.make_sharded_evolve`.
 """
 
 from __future__ import annotations
@@ -58,9 +59,10 @@ def make_mesh(
     """Build a device mesh for domain decomposition.
 
     Defaults: all available devices, factorized into a 2-axis mesh named
-    ``("x", "y")`` (grids shard their two leading dimensions — for 3D this keeps
-    the innermost (lane) dimension unsharded, which is the layout the stencils
-    want on TPU).
+    ``("x", "y")``: grids shard their two leading dimensions, and for 3D the
+    innermost (contiguous) dimension stays whole on every device, so halo slabs
+    are contiguous rows. Every device reaches every other at the same rate, so
+    the mesh shape follows the grid alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_devices is not None:

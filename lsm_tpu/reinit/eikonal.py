@@ -2,7 +2,7 @@
 
 Replaces the reference's KDTree + Newton closest-point ``reinitialize!``
 (``/root/reference/src/reinitializer.jl``, ``src/sdf.jl``) with an iterated
-Hamilton-Jacobi pseudo-time solve — the TPU-native formulation anticipated by the
+Hamilton-Jacobi pseudo-time solve — the whole-array formulation anticipated by the
 reference's own ``EikonalReinitializationTerm`` (``src/levelsetterms.jl:190-265``):
 
     d phi / d tau = - sign(phi0) (|grad phi| - 1)

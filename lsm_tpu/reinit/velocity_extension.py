@@ -1,6 +1,6 @@
 """Velocity extension off the interface along normals (Peng et al. 1999).
 
-TPU-native analogue of ``/root/reference/src/velocityextension.jl``: solve in
+JAX analogue of the reference's ``src/velocityextension.jl``: solve in
 pseudo-time ``dF/dtau + sign(phi) n . grad(F) = 0`` with first-order upwinding
 biased by the precomputed smoothed-signed-normal components
 ``a_d = S * grad(phi)_d / |grad(phi)|``, ``S = phi / sqrt(phi^2 + dx^2)``, holding a

@@ -1,6 +1,6 @@
 """Hamilton-Jacobi terms of the level-set equation ``phi_t + sum_n term_n = 0``.
 
-TPU-native analogue of ``/root/reference/src/levelsetterms.jl``: each term is an
+JAX analogue of the reference's ``src/levelsetterms.jl``: each term is an
 immutable pytree with three methods —
 
 - ``rhs(phi, t)``    -> whole-grid contribution array (the reference's per-node
@@ -161,31 +161,14 @@ class AdvectionTerm(_Term):
         new_vel = self.update_func(self.velocity, phi, t)
         return AdvectionTerm(new_vel, self.scheme, self.update_func)
 
-    def stage_values(self, phi, t, aux_values, coeffs):
-        """Fused RK-stage update for the single-advection-term fast path:
-        ``alpha*aux + beta*phi - gamma*(u . grad phi)`` in ONE kernel pass
-        (one HBM round trip per stage on TPU instead of Hamiltonian + axpy;
-        reference stage algebra: ``timestepping.jl:126-202``). ``coeffs =
-        (alpha, beta, gamma)`` may be traced scalars (CFL-adaptive ``dt``
-        does not recompile). Only valid for ``scheme == 'weno5'``."""
-        from ..ops.weno_pallas import weno_advection_stage
-
-        p = phi.pad(self.pad_width)
-        u = _eval_vector_field(self.velocity, phi, t)
-        return weno_advection_stage(
-            p, u, aux_values, tuple(coeffs), tuple(phi.spacing), tuple(phi.shape)
-        )
-
     def rhs(self, phi, t):
         g = self.pad_width
         p = phi.pad(g)
         u = _eval_vector_field(self.velocity, phi, t)
         spacing = phi.spacing
         if self.scheme == "weno5":
-            # fused Pallas kernel on TPU (custom-VJP wrapped), jnp fallback
-            from ..ops.weno_pallas import weno_advection_rhs
-
-            return weno_advection_rhs(p, u, tuple(spacing), tuple(phi.shape))
+            # hand-adjoint VJP: f32 autodiff of WENO5 is wrong at tie cells
+            return st.weno5_advection(p, u, tuple(spacing), tuple(phi.shape))
         out = 0.0
         for ax, h in enumerate(spacing):
             dminus = st.dm(p, ax, h, g, phi.shape)
@@ -339,14 +322,6 @@ class EikonalReinitializationTerm(_Term):
 
 
 # -- term-collection helpers (levelsetterms.jl:14-38) ------------------------------
-
-
-def fused_stage_term(terms) -> Optional["AdvectionTerm"]:
-    """The single WENO5 :class:`AdvectionTerm` when the term list qualifies for
-    the fused one-pass-per-RK-stage kernel path, else ``None``."""
-    if len(terms) == 1 and isinstance(terms[0], AdvectionTerm) and terms[0].scheme == "weno5":
-        return terms[0]
-    return None
 
 
 def update_terms(terms: Sequence[_Term], phi: MeshField, t):

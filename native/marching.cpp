@@ -1,6 +1,6 @@
 // Native surface/contour extraction for lsm_tpu.
 //
-// TPU-native counterpart of the reference's surface-export path
+// Counterpart of the reference's surface-export path
 // (ext/MMGSurfaceExt.jl: MarchingCubes.jl triangulation + MMG remesh
 // subprocess): the zero isosurface of a node-centered level set on a uniform
 // grid is triangulated in C++ via *marching tetrahedra* (each cell split into 6

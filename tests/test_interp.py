@@ -257,7 +257,7 @@ def test_newton_sdf_lazy_and_chunked_queries():
 
 def test_newton_sdf_jittable_build_matches_host_build():
     """max_cut_cells makes the whole NewtonSDF construction traceable
-    (capacity-bounded cut-cell gather; VERDICT r2 weak #8), so the high-order
+    (capacity-bounded cut-cell gather), so the high-order
     reinit can run inside compiled evolutions. The jitted build must equal
     the host build exactly when the capacity suffices."""
     import jax
@@ -284,8 +284,8 @@ def test_newton_sdf_jittable_build_matches_host_build():
 def test_jump_flood_seed_matches_brute_force_nearest():
     """The jump-flood seed grid's best candidate must be (near-)optimal: its
     distance to the query may exceed the true nearest-sample distance only by
-    the one-node flood approximation (VERDICT r3 weak #4 replacement for the
-    reference KDTree, sdf.jl:71-73)."""
+    the one-node flood approximation (the replacement for the reference
+    KDTree, sdf.jl:71-73)."""
     import numpy as np
 
     from lsm_tpu.interp.sdf import NewtonSDF

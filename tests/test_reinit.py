@@ -173,8 +173,8 @@ def test_extend_argument_checks():
 
 
 def test_newton_vs_eikonal_reinit_accuracy_gap():
-    """Quantify the accuracy gap between the two reinitialization methods
-    (VERDICT r1 weak #7): the Newton closest-point oracle (reference
+    """Quantify the accuracy gap between the two reinitialization methods:
+    the Newton closest-point oracle (reference
     ``reinitialize!``, O(h^(k+1)) at order k) must beat the subcell-fixed
     Eikonal PDE solve near the interface, and by a growing factor as h -> 0."""
     from lsm_tpu import reinitialize_newton
@@ -213,7 +213,7 @@ def test_newton_vs_eikonal_reinit_accuracy_gap():
 
 def test_reinitialize_newton_overflow_fails_loud():
     """Seed-set truncation (cut cells > max_cut_cells) warns by default and
-    raises with on_overflow="raise" (VERDICT r4 next #7); an adequate
+    raises with on_overflow="raise"; an adequate
     capacity stays silent."""
     import warnings
 

@@ -211,7 +211,7 @@ def test_i2oe_step_count_advantage_per_revolution():
 def test_f32_solve_converges_without_warning():
     """Dtype-aware default tolerance: an f32 solve must reach its own
     (50*eps(f32)) residual target and emit NO non-convergence warning
-    (VERDICT r3 weak #3: the old tol=1e-10 default is below f32 resolution,
+    (an absolute tol=1e-10 would be below f32 resolution,
     spinning BiCGStab to maxiter every step and discarding the failure)."""
     import warnings
 

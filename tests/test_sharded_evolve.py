@@ -1,5 +1,5 @@
 """Sharded device-resident adaptive evolution == unsharded evolve, dense and
-narrow-band, on the 8-device virtual CPU mesh (VERDICT r1 next-round #5).
+narrow-band, on the 8-device virtual CPU mesh.
 
 The whole adaptive while-loop (state-dependent CFL dt) runs inside shard_map
 with a pmin CFL reduction; results must match the single-device
